@@ -1,5 +1,4 @@
-"""End-to-end latency through the native I/O path on real hardware
-(VERDICT r2 #6).
+"""End-to-end latency through the native I/O path on real hardware.
 
 Drives `python -m real_time_sdr_tpu.cli` as a SUBPROCESS through real
 pipes — raw uint8 IQ paced at the live-capture rate into stdin, PCM
@@ -68,7 +67,7 @@ def _read_stderr(proc, sink):
 def _run_wideband(args, env) -> None:
     """Live-paced WIDEBAND serving: one 9.6 MS/s capture with real FM
     stations piped into `cli 0 r --stations ...` at the capture's real
-    byte rate; asserts the CLI sustains >= real time through the tunnel
+    byte rate; asserts the CLI sustains >= real time
     AND decodes RDS PS live (the fused wideband frontend serving path)."""
     import tempfile
 
@@ -165,7 +164,6 @@ def main() -> None:
 
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
-    env.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_cache")
     extra_cpu = ["--cpu"] if args.cpu else []
 
     if args.wideband:

@@ -1,4 +1,4 @@
-"""Measure the runtime-retune path (VERDICT r4 #5): operand-weights
+"""Measure the runtime-retune path: operand-weights
 serving cost vs jit constants, and the end-to-end latency of re-pointing
 one station (host column rebuild + device re-upload + next dispatch).
 
@@ -18,7 +18,6 @@ import sys
 import time
 
 sys.path.append(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/repo/.jax_cache")
 
 
 def main() -> None:
@@ -30,6 +29,9 @@ def main() -> None:
 
     import jax
     import jax.numpy as jnp
+
+    from real_time_sdr_tpu.utils import compile_cache
+    compile_cache.enable()
     import numpy as np
 
     from real_time_sdr_tpu.models.receiver import Receiver

@@ -1,1 +1,1 @@
-"""Golden NumPy/float64 oracle models for the TPU receiver (see dsp.py)."""
+"""Golden NumPy/float64 oracle models for the JAX receiver (see dsp.py)."""

@@ -1,4 +1,4 @@
-"""Golden NumPy models: the test oracle for the TPU receiver.
+"""Golden NumPy models: the test oracle for the JAX receiver.
 
 This plays the role the reference's ``model/`` directory plays for its C++
 (model-as-oracle cross-validation, see SURVEY.md section 4): every on-device

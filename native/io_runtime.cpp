@@ -1,4 +1,4 @@
-// Native streaming I/O runtime for the TPU receiver.
+// Native streaming I/O runtime for the JAX receiver.
 //
 // Redesign of the reference's host-side concurrency layer
 // (include/threadsafequeue.h single-slot rendezvous + the blocking

@@ -1,6 +1,7 @@
-"""real_time_sdr_tpu: a TPU-native (JAX/XLA/Pallas) FM broadcast receiver
+"""real_time_sdr_tpu: a JAX/XLA FM broadcast receiver
 framework — mono/stereo audio + RDS decoding — with the full capability
-surface of the reference real-time-SDR project, re-designed TPU-first.
+surface of the reference real-time-SDR project, re-designed for
+accelerators (the package name records where it started).
 
 Layers (see SURVEY.md for the reference layer map):
   config    — mode presets + derived static shapes

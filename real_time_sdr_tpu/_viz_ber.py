@@ -1,6 +1,6 @@
 """The --ber operating-curve sweep for python -m real_time_sdr_tpu.viz.
 
-Full robustness matrix (VERDICT r2 #7), not a single curve:
+Full robustness matrix, not a single curve:
 
     AWGN sigma  x  CDR timing {comb, tracked}
                 x  framer {matrix RdsFramer, SyncByOffsetDecoder}

@@ -1,6 +1,6 @@
 """Receiver configuration: the four sample-rate modes and derived quantities.
 
-TPU-native re-design of the reference CLI/config layer
+Re-design of the reference CLI/config layer
 (reference: src/project.cpp:67-108 mode switch, include/args.h:6-19 struct args).
 
 The reference carries a mutable ``args`` struct into each pipeline thread. Here

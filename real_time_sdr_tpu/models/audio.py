@@ -1,6 +1,6 @@
 """Audio chains: mono extraction and stereo pilot-PLL matrixing.
 
-TPU-native redesign of the reference's audio threads (src/mono.cpp:8-50,
+Redesign of the reference's audio threads (src/mono.cpp:8-50,
 src/stereo.cpp:10-115). The stages compose into one jitted dataflow per
 block; the thread/queue structure of the reference collapses because the
 device graph already evaluates mono, stereo, and (separately) RDS branches
@@ -17,7 +17,7 @@ import jax.numpy as jnp
 from real_time_sdr_tpu import config as C
 from real_time_sdr_tpu.config import ReceiverConfig
 from real_time_sdr_tpu.ops import filters
-from real_time_sdr_tpu.ops.fir import PolyFIR, barrier, make_bank, state_len
+from real_time_sdr_tpu.ops.fir import FIRBank, PolyFIR, barrier, state_len
 from real_time_sdr_tpu.ops.pll import (PllCarry, PllParams, pll_init,
                                        pll_newton, pll_scan)
 from real_time_sdr_tpu.ops.sync import FeedforwardSync
@@ -42,7 +42,7 @@ class MonoPath:
     def __init__(self, cfg: ReceiverConfig):
         self.cfg = cfg
         self.audio_fir = _audio_bank(cfg)
-        self._audio_bank = make_bank([self.audio_fir], site="audio")
+        self._audio_bank = FIRBank([self.audio_fir])
 
     def init_state(self, batch: tuple = ()) -> MonoState:
         return MonoState(jnp.zeros(batch + (self.audio_fir.tail_len,),
@@ -86,22 +86,14 @@ class StereoPath:
         # same tap bank, different input stream; PolyFIR is stateless
         # (tails are passed in), so one designed object serves both rails
         self.stereo_fir = self.mono_fir
-        self._pb_bank = make_bank([self.pilot_fir, self.band_fir],
-                                  site="if")
-        # mono_fir and stereo_fir are the SAME tap bank on different inputs:
-        # with the Pallas backend, stack the two streams into a batch axis
-        # and resample both with one kernel call (frames per rail, single
-        # dispatch); the XLA backend keeps two 2-D calls (see __call__)
-        from real_time_sdr_tpu.ops.fir import _XlaBank
-        self._resamp_bank = make_bank([self.mono_fir], site="audio")
-        self._stack_rails = not isinstance(self._resamp_bank, _XlaBank)
+        self._pb_bank = FIRBank([self.pilot_fir, self.band_fir])
         self.pll_params = PllParams(freq=int(C.PILOT_FREQ), fs=fs_if,
                                     nco_scale=2.0, phase_adjust=0.0,
                                     norm_bw=C.PLL_BW_STEREO)
         if pll_tier == 3:
-            # derive2: mode-0's graph is VPU-bound (deriving the
-            # double-angle tables measured +14% there) while modes 1-3
-            # are table-HBM-bound (-2..-8%) — ops/sync.py A/B 2026-08-20
+            # derive2 for modes 1-3, the exact rolled tables for mode 0
+            # (see FeedforwardSync: which one pays depends on whether the
+            # mode's graph is bound by table traffic or elementwise work)
             self._sync = FeedforwardSync(self.pll_params,
                                          derive2=(cfg.mode != 0))
             self._pll = self._sync.__call__
@@ -122,7 +114,7 @@ class StereoPath:
     def __call__(self, demod: jax.Array, state: StereoState, shared=None):
         """shared: optional (pilot, band, new_tail) precomputed by the
         receiver-level shared-frame IF matmul (ops.fir.shared_frames_apply)
-        so the stereo and RDS band filters ride one MXU pass."""
+        so the stereo and RDS band filters ride one matmul."""
         if shared is not None:
             pilot, band, pilot_tail = shared
         else:
@@ -133,21 +125,11 @@ class StereoPath:
         carrier = barrier(carrier, "pll")
         stereo_dc = 2.0 * band * carrier
         mono_delay, delay_tail = self.delay_fir(demod, state.delay_tail)
-        if self._stack_rails:
-            # Pallas bank: both rails through ONE kernel call (the batch
-            # axis lifts into the grid — single dispatch, frames in VMEM)
-            rails = jnp.stack([mono_delay, stereo_dc], axis=-2)
-            tails = jnp.stack([state.mono_tail, state.stereo_tail], axis=-2)
-            (ys,), new_tails = self._resamp_bank(rails, tails)
-            mono, sub = ys[..., 0, :], ys[..., 1, :]
-            mono_tail = new_tails[..., 0, :]
-            stereo_tail = new_tails[..., 1, :]
-        else:
-            # XLA path: keep the rails as separate 2-D stages — a stacked
-            # 3-D frame construction sends XLA's fusion search into the
-            # known compile-time explosion (see ops.fir barrier note)
-            mono, mono_tail = self.mono_fir(mono_delay, state.mono_tail)
-            sub, stereo_tail = self.stereo_fir(stereo_dc, state.stereo_tail)
+        # the two rails stay separate 2-D stages: a stacked 3-D frame
+        # construction sends XLA's fusion search into a compile-time
+        # explosion
+        mono, mono_tail = self.mono_fir(mono_delay, state.mono_tail)
+        sub, stereo_tail = self.stereo_fir(stereo_dc, state.stereo_tail)
         left = mono + sub
         right = mono - sub
         new_state = StereoState(pilot_tail, delay_tail,

@@ -1,6 +1,6 @@
 """RDS chain: 57 kHz BPSK subcarrier -> RRC-clean samples -> decoded bits.
 
-TPU-native redesign of the reference's RDS thread DSP half
+Redesign of the reference's RDS thread DSP half
 (src/rds.cpp:95-133) and the slicer/decoder entry (src/rds.cpp:135-167):
 
   BPF 54-60 kHz -> squaring nonlinearity -> BPF 113.5-114.5 kHz ->
@@ -22,7 +22,7 @@ import jax.numpy as jnp
 from real_time_sdr_tpu import config as C
 from real_time_sdr_tpu.config import ReceiverConfig
 from real_time_sdr_tpu.ops import filters
-from real_time_sdr_tpu.ops.fir import PolyFIR, barrier, make_bank, state_len
+from real_time_sdr_tpu.ops.fir import FIRBank, PolyFIR, barrier, state_len
 from real_time_sdr_tpu.ops.pll import (PllCarry, PllParams, pll_init,
                                        pll_newton, pll_scan)
 from real_time_sdr_tpu.ops.rds_bits import (BitSyncState, TimingTrack,
@@ -50,7 +50,7 @@ class RdsPath:
     timing: "comb" = the reference's per-block argmax CDR
     (src/rds_utilities.cpp:4-21); "tracked" = polyphase-interpolating CDR
     with drift accumulator (twin of the Muller-Mueller tracking in
-    model/pySDRRDS.py:36-55, redesigned feedforward for TPU) — follows a
+    model/pySDRRDS.py:36-55, redesigned feedforward) — follows a
     symbol-clock ppm error the fixed comb cannot.
     """
 
@@ -79,10 +79,10 @@ class RdsPath:
             filters.design_rrc(cfg.rds_fs, cfg.rf_taps,
                                symbol_rate=C.RDS_SYMBOL_RATE,
                                beta=C.RDS_RRC_BETA))
-        self._band_bank = make_bank([self.band_fir], site="if")
-        self._pilot_bank = make_bank([self.pilot_fir], site="if")
-        self._baseband_bank = make_bank([self.baseband_fir], site="rds_bb")
-        self._rrc_bank = make_bank([self.rrc_fir], site="rds_rrc")
+        self._band_bank = FIRBank([self.band_fir])
+        self._pilot_bank = FIRBank([self.pilot_fir])
+        self._baseband_bank = FIRBank([self.baseband_fir])
+        self._rrc_bank = FIRBank([self.rrc_fir])
         self.pll_params = PllParams(freq=int(C.RDS_PILOT_FREQ), fs=fs_if,
                                     nco_scale=0.5, phase_adjust=0.0,
                                     norm_bw=C.PLL_BW_RDS)

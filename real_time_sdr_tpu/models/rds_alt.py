@@ -9,7 +9,7 @@ PLL at the 19 kHz-centred IF, it
    baseband (pySDRRDS.py:18-23),
 2. low-pass filters and resamples to 19 kHz = 16 samples/bit
    (pySDRRDS.py:25-34) — one polyphase stage here (19/if_fs rational,
-   MXU matmul via ops.fir.PolyFIR) instead of the reference's
+   one matmul via ops.fir.PolyFIR) instead of the reference's
    convolve + ::10 + resample_poly(19, 25) ladder,
 3. recovers bit timing with a Mueller–Muller loop
    (ops.symbol_timing.mm_timing; pySDRRDS.py:36-55),

@@ -1,6 +1,6 @@
 """Full receiver: one jitted (state, IQ-block) -> (state, outputs) step.
 
-This is the TPU-native replacement for the reference's three-thread pipeline
+This is the device-graph replacement for the reference's three-thread pipeline
 (src/project.cpp:134-140 + include/threadsafequeue.h): on device there is no
 need for pipeline threads or a broadcast rendezvous queue — the mono/stereo
 and RDS branches are just two consumers of the same ``fm_demod`` value inside
@@ -49,7 +49,7 @@ class Receiver:
 
     def __init__(self, cfg: ReceiverConfig | int = 0, *, stereo: bool = False,
                  rds: bool = False, pll_tier: int = 1,
-                 rds_timing: str = "comb", frontend_impl: str | None = None):
+                 rds_timing: str = "comb"):
         if isinstance(cfg, int):
             cfg = mode_config(cfg)
         if pll_tier not in (1, 2, 3):
@@ -58,23 +58,21 @@ class Receiver:
         self.cfg = cfg
         self.stereo = stereo
         self.rds = rds
-        self.frontend = Frontend(cfg, impl=frontend_impl)
+        self.frontend = Frontend(cfg)
         self.audio = StereoPath(cfg, pll_tier) if stereo else MonoPath(cfg)
         self.rds_path = (RdsPath(cfg, pll_tier, timing=rds_timing)
                          if rds else None)
         if stereo and rds:
             # stereo pilot + stereo band + RDS band BPFs share one frame
-            # matrix and run as ONE matmul (Pallas in-VMEM frames on TPU,
-            # ops.fir.shared_frames_apply elsewhere)
-            from real_time_sdr_tpu.ops.fir import make_bank
-            self._if_bank = make_bank([self.audio.pilot_fir,
-                                       self.audio.band_fir,
-                                       self.rds_path.band_fir], site="if")
+            # matrix and run as ONE matmul (ops.fir.shared_frames_apply)
+            from real_time_sdr_tpu.ops.fir import FIRBank
+            self._if_bank = FIRBank([self.audio.pilot_fir,
+                                     self.audio.band_fir,
+                                     self.rds_path.band_fir])
         else:
             self._if_bank = None
         self._jit_step = jax.jit(self.step)
         self._jit_scan = jax.jit(self.run_blocks)
-        self._staged_jits: dict[int, Any] = {}
 
     # -- state -------------------------------------------------------------
 
@@ -169,42 +167,6 @@ class Receiver:
         """
         return self.step(state, iq_segment)
 
-    def run_segment_staged(self, state: ReceiverState, xp_u8: jax.Array,
-                           n2: int):
-        """Segment mode over a HOST-STAGED operand (pallas frontend only):
-        xp_u8 (..., frontend.staged_len(n2)) = [tail | segment | 0x80 pad]
-        built by ``frontend.stage_segment``. Bit-identical to
-        ``run_segment`` on the embedded segment, minus the device-side
-        concat+pad staging passes (the last named flagship overhead —
-        BENCH_NOTES mode-0/2 attribution). ``n2`` is static (the segment
-        byte length). The operand may also be the pre-shaped
-        (rows_total, stride) int8 rows form (``stage_segment(rows=True)``
-        — zero device-side prep at all), or the (rows, bnd, tail) triple
-        from ``stage_segment_full`` (zero prep AND no whole-operand
-        relayout — the serving default). The returned state is fully
-        consistent, so staged and unstaged calls interleave freely."""
-        aux = None
-        if isinstance(xp_u8, (tuple, list)):
-            xp_u8, bnd, tail_b = xp_u8
-            aux = (bnd, tail_b)
-        self._check_batch(xp_u8,
-                          2 if xp_u8.dtype == jnp.int8 else 1)
-        demod, f_state = self.frontend.call_staged(xp_u8, n2,
-                                                   state.frontend,
-                                                   aux=aux)
-        return self._post_frontend(demod, f_state, state)
-
-    def jit_run_segment_staged(self, state: ReceiverState, xp_u8: jax.Array,
-                               n2: int):
-        """Jitted ``run_segment_staged`` (one cached graph per segment
-        byte length, like jit_step's per-shape caching)."""
-        fn = self._staged_jits.get(n2)
-        if fn is None:
-            import functools
-            fn = self._staged_jits[n2] = jax.jit(
-                functools.partial(self.run_segment_staged, n2=n2))
-        return fn(state, xp_u8)
-
     def run_segment_demod(self, state: ReceiverState, demod: jax.Array):
         """Post-frontend entry: ``demod`` (n_blocks*if_block,) float32 is
         the FM-discriminated IF signal computed EXTERNALLY (the fused
@@ -225,13 +187,10 @@ class Receiver:
         carried state chains across tiles, so results equal a single pass
         up to f32 reduction order.
 
-        NOTE (v5e, measured): prefer HOST-chained 12-block ``run_segment``
-        calls for serving — dispatches pipeline asynchronously, the
-        compiled graph stays at the optimal shape, and compile time stays
-        bounded. This in-graph scan form compiles slowly at scale and ran
-        ~2x slower at 128ch x 48blk (BENCH_NOTES.md); it exists for
-        single-dispatch contexts (e.g. inside a larger jit) and
-        non-TPU backends.
+        Prefer HOST-chained 12-block ``run_segment`` calls for serving:
+        dispatches pipeline asynchronously, the compiled graph stays at one
+        shape, and compile time stays bounded. This in-graph scan form
+        exists for single-dispatch contexts (e.g. inside a larger jit).
         """
         blk = 2 * self.cfg.block_size_iq
         n_blocks = iq_segment.shape[-1] // blk

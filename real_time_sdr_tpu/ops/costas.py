@@ -10,7 +10,7 @@ post-timing-recovery rate — a whole second of signal is ~1188 iterations,
 so a ``lax.scan`` costs microseconds and there is nothing to vectorize
 away. (Contrast the 19 kHz pilot PLL, where ops.pll/ops.sync replace the
 scan with Newton / feedforward forms; at this rate the scan IS the right
-TPU program.)
+device program.)
 
 Gains: the reference uses (alpha=8.0, beta=0.002) on its capture, whose
 baseband amplitude happens to be ~0.05 — the error Re*Im scales with

@@ -1,7 +1,7 @@
 """FM discriminators: arctan-free quadrature derivative demodulator and the
 arctan+unwrap variant.
 
-TPU-native twin of ``fmDemodNoArctan`` (reference: src/demod.cpp:3-24; Python
+Device twin of ``fmDemodNoArctan`` (reference: src/demod.cpp:3-24; Python
 model ``fmDemod``, model/fmSupportLib.py:164-183):
 
     d[n] = (I[n]*(Q[n]-Q[n-1]) - Q[n]*(I[n]-I[n-1])) / (I[n]^2 + Q[n]^2)

@@ -1,6 +1,6 @@
 """FIR filter design (host-side, float64 NumPy).
 
-TPU-native counterpart of the reference's filter design layer
+Counterpart of the reference's filter design layer
 (reference: src/filter.cpp:13-102, model/fmSupportLib.py:35-74,
 model/fmRRC.py:13-53). Design runs once on the host in float64; the
 resulting taps are constants folded into the jitted receiver graph.

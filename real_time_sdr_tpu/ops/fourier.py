@@ -1,16 +1,17 @@
-"""Fourier transforms: a TPU-idiomatic implementation ladder.
+"""Fourier transforms: an accelerator-idiomatic implementation ladder.
 
 The reference carries a pedagogical ladder of hand transforms — DFT O(N^2),
 recursive FFT, precomputed-twiddle FFT, iterative bit-reversed FFT
 (src/fourier.cpp:14-215) — asserted pairwise-equivalent by its unit tests
-(test/fft_unittest.cpp:53-90). A faithful translation would be slow on TPU
-(bit-reversal is a gather; scalar recursion doesn't trace), so this module
+(test/fft_unittest.cpp:53-90). A faithful translation would be slow on an
+accelerator (bit-reversal is a gather; scalar recursion doesn't trace), so
+this module
 rebuilds the ladder out of shapes the hardware likes:
 
-- ``dft_matmul`` — the O(N^2) transform AS AN MXU MATMUL: at PSD size
+- ``dft_matmul`` — the O(N^2) transform AS A MATMUL: at PSD size
   (N=512) the twiddle matrix is resident and the batch of segments rides
   one (S, 512) x (512, 512) pass per real/imag part. The "naive" algorithm
-  is the FAST one when a systolic array is the compute unit and S is large.
+  is the FAST one when a matrix unit does the work and S is large.
 - ``fft_stockham`` — radix-2 Stockham autosort FFT: log2(N) vectorized
   butterfly stages built from reshape/concat (NO bit-reversal permutation,
   no gathers — the autosort formulation reorders implicitly through the
@@ -59,8 +60,8 @@ _TWIDDLE_CACHE: dict[int, tuple[np.ndarray, np.ndarray]] = {}
 
 def _twiddle_mats(n: int) -> tuple[np.ndarray, np.ndarray]:
     """(Re, Im) of the n-point DFT matrix, f32 (src/fourier.cpp:129-134
-    precomputes the same values as a vector; on TPU the natural layout is
-    the full matrix — it lives in VMEM and feeds the MXU)."""
+    precomputes the same values as a vector; for a matmul the natural
+    layout is the full matrix)."""
     if n not in _TWIDDLE_CACHE:
         k = np.arange(n)
         ang = -2.0 * np.pi * np.outer(k, k) / n
@@ -70,11 +71,11 @@ def _twiddle_mats(n: int) -> tuple[np.ndarray, np.ndarray]:
 
 
 def dft_matmul(x: jax.Array) -> jax.Array:
-    """O(N^2) DFT as MXU matmuls over the last axis; real or complex input.
+    """O(N^2) DFT as matmuls over the last axis; real or complex input.
 
     The reference's ``DFT`` (src/fourier.cpp:14-22) re-shaped for the
     hardware: a batch of S segments is two/four (S, N) x (N, N) matmuls.
-    For the Bartlett PSD's N=512 this is the TPU-fast path — the twiddle
+    For the Bartlett PSD's N=512 this is the matmul path — the twiddle
     matrix stays resident across the whole batch."""
     wr, wi = _twiddle_mats(x.shape[-1])
     wr = jnp.asarray(wr)
@@ -96,10 +97,10 @@ def dft_matmul(x: jax.Array) -> jax.Array:
 def fft_stockham(x: jax.Array) -> jax.Array:
     """Radix-2 Stockham autosort FFT over the last axis (power-of-2 N).
 
-    The TPU-native twin of the reference's iterative ``FFT_optimized``
+    The vectorized twin of the reference's iterative ``FFT_optimized``
     (src/fourier.cpp:193-215): that version needs a bit-reversal
     permutation (``bit_reversal``, src/fourier.cpp:107-127) — a gather,
-    pathological on TPU layouts. Stockham's (l, m) shape walk performs the
+    slow on accelerator layouts. Stockham's (l, m) shape walk performs the
     reordering implicitly: every stage is a split + twiddle-multiply +
     concat, all vectorized, log2(N) stages unrolled at trace time."""
     n = x.shape[-1]

@@ -1,6 +1,6 @@
 """Type-2 second-order PLL + NCO, two execution tiers.
 
-TPU-native redesign of ``fmpll`` (reference: src/pll.cpp:4-61; Python model
+Redesign of ``fmpll`` (reference: src/pll.cpp:4-61; Python model
 model/fmPll.py:103-175). Loop constants Cp=2.666, Ci=3.555; per sample:
 
     e       = atan2(-x*fbQ, x*fbI)            # phase detector
@@ -27,9 +27,8 @@ resulting affine 2x2 recurrence in (integrator, phase) with a single
 ``lax.associative_scan`` of affine maps, repeat ``iters`` times. Each sweep is
 log-depth and fully vectorized. Role: the block-parallel twin of the exact
 loop for correctness work (reference-semantics parity tests, the dryrun's dp
-configuration) — NOT the production path: measured on v5e the tier-3
-feedforward synchronizer (ops.sync) is ~14x faster and is what ships
-(CLAUDE.md dead-ends, BENCH_NOTES).
+configuration) — NOT the production path: the tier-3 feedforward
+synchronizer (ops.sync) carries no recurrence at all and is what ships.
 
 Numerical hygiene not in the reference: the oscillator ramp 2*pi*(f/Fs)*trig
 is computed from an *integer* counter wrapped modulo 2*Fs/gcd(f,Fs) (exact),
@@ -195,7 +194,7 @@ def _newton_chunk(x: jax.Array, carry: PllCarry, p: PllParams, iters: int):
 
         The 2x2 affine maps are carried as six SEPARATE (n,)-arrays so every
         combine is a lane-aligned elementwise op — materializing (n, 2, 2)
-        tensors would pad each tiny matrix to a full TPU tile.
+        tensors would pad each tiny matrix to a full hardware tile.
         """
         g = e_lin + m * phi_ref
         ones = jnp.ones_like(m)

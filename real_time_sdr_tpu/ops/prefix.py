@@ -1,17 +1,16 @@
-"""Long-axis inclusive prefix sum as MXU matmuls.
+"""Long-axis inclusive prefix sum as matmuls.
 
-XLA lowers ``jnp.cumsum`` over a long axis to ``reduce_window_sum`` — on
-TPU v5e that compiled to a depthwise convolution costing ~286 us for a
-(32, 88320) f32 operand (measured: the tier-3 sync's phase unwrap,
-ops/sync.py, was the single most expensive kernel in the receiver graph).
+XLA lowers ``jnp.cumsum`` over a long axis to ``reduce_window_sum``, a
+windowed reduction whose cost grows with the axis (the tier-3 sync's phase
+unwrap, ops/sync.py, runs one over every IF sample).
 
-The MXU form: tile the axis into (rows, 128), compute every within-row
+The matmul form: tile the axis into (rows, 128), compute every within-row
 prefix with ONE dot against a constant lower-triangular ones matrix, then
 add the exclusive row offsets (a recursively tiny prefix sum of the row
-totals). Work is 128x the data (one 128-MAC dot per element) but runs at
-MXU speed: ~128x parallel lanes of the reduce_window loop. Measured ~6x
-faster at the sync shape; numerics are f32 dot accumulation (tree order)
-instead of sequential adds — same error class, not bit-identical.
+totals). Work is 128x the data (one 128-MAC dot per element) but runs on
+the matrix unit with no sequential dependence; numerics are f32 dot
+accumulation (tree order) instead of sequential adds — same error class,
+not bit-identical.
 """
 
 from __future__ import annotations

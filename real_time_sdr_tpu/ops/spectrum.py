@@ -28,10 +28,9 @@ def estimate_psd(samples: jax.Array, fs: float, nfft: int = NFFT,
     averaged, 10*log10.
 
     method selects the transform from the ops.fourier ladder: "matmul"
-    (default — the O(N^2) DFT as resident-twiddle MXU matmuls over the
-    whole segment batch; measured 9.5x faster than XLA's FFT at this shape
-    on v5e: 0.57 vs 5.42 ms for 1875 x 512 segments), "fft" (XLA), or
-    "stockham" (the vectorized radix-2 autosort, 0.60 ms).
+    (default — the O(N^2) DFT as resident-twiddle matmuls over the whole
+    segment batch), "fft" (XLA), or "stockham" (the vectorized radix-2
+    autosort).
     """
     from real_time_sdr_tpu.ops import fourier
     n = samples.shape[-1]

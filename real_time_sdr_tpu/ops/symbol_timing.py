@@ -5,16 +5,16 @@ Twin of the symbol-sync loop in the reference's alternative RDS model
 current fractional position, form the M&M error from the last three
 symbol decisions, and advance the position by ``sps + gain*err``.
 
-Differences from the reference, both TPU-shaped:
+Differences from the reference, both accelerator-shaped:
 
 - the reference pre-interpolates the whole stream 32x with resample_poly
   and indexes ``i_in*32 + int(mu*32)``; here the fractional sample is a
   2-point linear interpolation fetched with ``dynamic_slice`` — same
-  quantization-free timing without materializing a 32x stream in HBM;
+  quantization-free timing without materializing a 32x stream;
 - the loop itself is a ``lax.while_loop`` with an integer/fractional
   split position carry (i_in, mu) exactly like the reference's — at the
   19 kHz input rate one second of signal is ~1188 iterations of a few
-  VPU ops, which is the cheapest correct program on this hardware (cf.
+  elementwise ops, which is the cheapest correct program (cf.
   ops.rds_bits.cdr_tracked for the feedforward production-path variant).
 
 Output symbols land in a fixed-size buffer (static shapes under jit);

@@ -3,19 +3,19 @@
 The reference regenerates the 38/57 kHz carriers with a per-sample PLL
 (src/pll.cpp) — an inherently sequential recurrence. Tiers 1/2 (ops.pll)
 reproduce that loop exactly / via block-parallel Newton. This module is the
-fully TPU-native alternative: *no recurrence at all*.
+fully vectorized alternative: *no recurrence at all*.
 
     pilot -> [ONE complex FIR: Hilbert pair (*) ramp-modulated smoother]
           -> rotate by the exact nominal carrier ramp (integer-wrapped,
              static table — modulation commutes with LTI filtering, so the
              rotate-then-smooth chain collapses into the filter design)
-          -> residual phase = atan2(Im, Re); unwrap = one MXU prefix sum
+          -> residual phase = atan2(Im, Re); unwrap = one matmul prefix sum
           -> carrier = cos(scale * (nominal ramp + residual) + adjust)
 
 Everything is one shared-frame FIR matmul plus a handful of full-block
 vectorized ops, so cost is independent of any loop bandwidth and the graph
 depth is O(1) — this is what lets a whole multi-block segment's carrier
-recovery run as a few TPU kernels.
+recovery run as a few device kernels.
 
 Semantics: approximates the locked PLL (validated e2e: stereo separation and
 RDS BER); it does not reproduce the reference's acquisition transient.
@@ -35,7 +35,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from real_time_sdr_tpu.ops.fir import PolyFIR, make_bank
+from real_time_sdr_tpu.ops.fir import FIRBank, PolyFIR
 from real_time_sdr_tpu.ops.pll import PllParams
 from real_time_sdr_tpu.ops.prefix import prefix_sum
 
@@ -80,10 +80,10 @@ class FeedforwardSync:
                  smooth_taps: int = 65, derive2: bool | None = None):
         self.p = p
         # stereo double-angle carrier: derive cos/sin(2*ramp) from (ce, se)
-        # by register algebra vs the exact rolled tables. Wins where the
-        # graph is table-HBM-bound (v5e 32x12 A/B 2026-08-20: mode 1 -8%,
-        # mode 3 -4%) and LOSES where it is VPU-bound (mode 0 +14%) — the
-        # caller picks per mode; RTSDR_SYNC_TBL2=1/0 force-overrides.
+        # by register algebra vs the exact rolled tables. Pays where the
+        # graph is bound by table memory traffic and costs where it is bound
+        # by elementwise work — the caller picks per mode;
+        # RTSDR_SYNC_TBL2=1/0 force-overrides.
         env = _os.environ.get("RTSDR_SYNC_TBL2")
         self.derive2 = (env != "1") if env is not None else bool(derive2)
         h_h = _hilbert_taps(hilbert_taps)
@@ -111,7 +111,7 @@ class FeedforwardSync:
         c = np.convolve(delay + 1j * h_h, wm)   # complex, 127 taps
         self.cr_fir = PolyFIR(c.real)
         self.ci_fir = PolyFIR(c.imag)
-        self._bank = make_bank([self.cr_fir, self.ci_fir], site="sync")
+        self._bank = FIRBank([self.cr_fir, self.ci_fir])
         # Group delay: the analytic estimate at FIR output k describes
         # input sample k-m (Hilbert pair); the smoother adds
         # (smooth_taps-1)/2 more delay, but only to the slowly-rotating
@@ -305,7 +305,7 @@ class FeedforwardSync:
             # general path (e.g. the RDS 114->57 kHz half-angle carrier,
             # nco_scale 0.5, where the 2*pi*k unwrap parity flips the
             # carrier sign and the full unwrap is load-bearing): inclusive
-            # prefix sum of the wrapped deltas via MXU matmuls, NOT
+            # prefix sum of the wrapped deltas via matmuls, NOT
             # jnp.cumsum (whose reduce_window lowering was the most
             # expensive kernel in the whole receiver graph; ops/prefix.py)
             resid_u = carry.resid[..., None] + prefix_sum(d)

@@ -1,10 +1,11 @@
 """Multi-host deployment helpers.
 
 The reference is strictly single-host (SURVEY.md section 5: shared-memory
-mutex/condvar only). The TPU framework scales across hosts the standard JAX
+mutex/condvar only). This framework scales across hosts the standard JAX
 way: ``jax.distributed.initialize`` + a global device mesh; the channel axis
-shards freely (zero coupling, DCN only sees placement) and the time axis
-rides ICI via the halo exchange in parallel.time_shard.
+shards freely (zero coupling, the network only sees placement) and the time
+axis rides the device interconnect via the halo exchange in
+parallel.time_shard.
 
 Per-host input feeding: each host reads/captures only the IQ channels that
 land on its local devices (``host_channel_slice``), then

@@ -115,8 +115,7 @@ def _build_exact_pipeline(rx: Receiver, mesh: Mesh, axis: str,
                           overlap: int, t: int):
     if rx.rds_path is not None:
         dsp_rx = Receiver(rx.cfg, stereo=rx.stereo, rds=True, pll_tier=3,
-                          rds_timing=rx.rds_path.timing,
-                          frontend_impl=rx.frontend.impl)
+                          rds_timing=rx.rds_path.timing)
         dsp_rx.rds_path.emit_bits = False
     else:
         dsp_rx = rx
@@ -236,8 +235,7 @@ def _build_exact_bank_pipeline(rx: Receiver, mesh: Mesh, ch_axis: str,
     channel."""
     if rx.rds_path is not None:
         dsp_rx = Receiver(rx.cfg, stereo=rx.stereo, rds=True, pll_tier=3,
-                          rds_timing=rx.rds_path.timing,
-                          frontend_impl=rx.frontend.impl)
+                          rds_timing=rx.rds_path.timing)
         dsp_rx.rds_path.emit_bits = False
     else:
         dsp_rx = rx

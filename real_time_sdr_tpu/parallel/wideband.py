@@ -5,7 +5,7 @@ The channel bank already shards its station axis (parallel/channel.py);
 this module puts the CHANNELIZER inside the same pjit so a single wideband
 capture is decoded to S stations across the device mesh without leaving
 the graph (SURVEY.md section 2.3 data-parallelism row: "64+ FM stations
-... sharded"; VERDICT r3 next #4).
+... sharded").
 
 Sharding layout (station axis ``ch``):
 
@@ -51,16 +51,6 @@ class ShardedWideband:
         self.rx = rx
         self.mesh = mesh
         self.axis = axis
-        # the Mosaic fold-epilogue kernel has no SPMD partitioning rule;
-        # inside this pjit the XLA 4-D epilogue is used instead — it
-        # partitions naturally on the station axis (same bytes to 1 u8
-        # LSB, see ops/pallas/chan_epilogue.py). Opt out on a shallow
-        # COPY so the caller's channelizer (which may also serve an
-        # unsharded path) keeps its kernel.
-        if getattr(ch, "_fold_kernel", None) is not None:
-            import copy
-            self.ch = ch = copy.copy(ch)
-            ch._fold_kernel = None
         self._sh_ch = NamedSharding(mesh, P(axis))
         self._sh_ch2 = NamedSharding(mesh, P(axis, None))
         self._sh_rep = NamedSharding(mesh, P())

@@ -3,7 +3,7 @@
 Twin of the reference's logfunc layer (src/logfunc.cpp:14-43 ``logVector``
 writing ../data/<name>.dat consumed by data/example.gnuplot) plus the
 framework-level additions the reference lacks (SURVEY.md section 5):
-a real-time budget tracker and a jax profiler hook.
+a real-time budget tracker and a speed-of-light cost model.
 """
 
 from __future__ import annotations
@@ -58,30 +58,37 @@ class BlockTimer:
                 f"real time")
 
 
-# Per-chip peaks for speed-of-light accounting. TPU v5e (one chip):
-# 197 TFLOP/s bf16 MXU, ~819 GB/s HBM. f32 einsum runs as a bf16
-# emulation: 6 passes at HIGHEST, 3 at HIGH (bf16x3) — the production
-# default on TPU since 2026-08-20 (ops/fir._f32_precision), so the f32
-# peak tracks the selected precision to keep pct-of-floor meaningful.
-V5E_BF16_FLOPS = 197e12
-V5E_HBM_BPS = 819e9
+# Published per-device peaks for speed-of-light accounting, keyed by
+# jax.Device.device_kind. H100 SXM: NVIDIA's data sheet, dense rates
+# without sparsity, at the full 700 W power limit. "f32" is the rate
+# outside the tensor cores, which is where Precision.HIGHEST f32 dots run;
+# "bf16" is the tensor-core rate that bf16 operands with f32 accumulation
+# reach. A device missing from the table is an error, never a default.
+PEAKS = {
+    "NVIDIA H100 80GB HBM3": {"bf16_flops": 989e12, "f32_flops": 67e12,
+                              "hbm_bps": 3.35e12,
+                              "source": "NVIDIA H100 SXM data sheet"},
+}
 
 
-def _f32_passes() -> int:
-    import jax
-    from ..ops.fir import _f32_precision
-    return 6 if _f32_precision() == jax.lax.Precision.HIGHEST else 3
-
-
-def _f32_flops() -> float:
-    return V5E_BF16_FLOPS / _f32_passes()
+def device_peaks(device_kind: str | None = None) -> dict:
+    """Peak table entry for ``device_kind`` (default: the first JAX
+    device's). Raises KeyError for a device the table does not know."""
+    if device_kind is None:
+        import jax
+        device_kind = jax.devices()[0].device_kind
+    try:
+        return PEAKS[device_kind]
+    except KeyError:
+        raise KeyError(
+            f"no published peaks for device kind {device_kind!r}; add it "
+            f"to utils.logging.PEAKS (known: {sorted(PEAKS)})") from None
 
 
 def _merge_shared(costs: list[dict], n: int, tail_len: int) -> dict:
     """Combine cost dicts of FIRs that ride ONE shared frame matrix
-    (ops.fir.make_bank / shared_frames_apply): the stage input is read
-    once, not once per member — counting it k times made the modeled
-    floors ~20-50% too generous (mode 0 measured 150% of its 'floor')."""
+    (ops.fir.FIRBank / shared_frames_apply): the stage input is read
+    once, not once per member."""
     el = 2 if all("bf16" in c["kind"] for c in costs) else 4
     byts = sum(c["bytes"] for c in costs) \
         - (len(costs) - 1) * el * (n + tail_len)
@@ -94,11 +101,11 @@ def _merge_shared(costs: list[dict], n: int, tail_len: int) -> dict:
 def _ew(n_streams: float, n: int, const_streams: float = 0.0,
         channels: int = 1) -> dict:
     """Elementwise-chain cost: ``n_streams`` f32 arrays of length ``n``
-    read or written at HBM, plus ``const_streams`` whose source is a
+    read or written in device memory, plus ``const_streams`` whose source is a
     per-dispatch CONSTANT shared by every channel (trig/angle tables —
     amortized over the channel batch; they already scale with blocks, so
     only the channel factor divides). FLOPs are negligible next to the
-    byte traffic (VPU elementwise at these sizes is memory-bound)."""
+    byte traffic (elementwise work at these sizes is memory-bound)."""
     return {"kind": "elementwise", "flops": 0,
             "bytes": int(4 * n * (n_streams + const_streams / channels)),
             "w_bytes": 0, "dims": (0, 0, 0)}
@@ -114,11 +121,10 @@ def stage_costs(rx, channels: int = 1) -> list[tuple[str, dict]]:
     Stages that share one frame matrix (the IF-bank BPF triple, each
     sync's complex FIR pair) are merged so their common input is charged
     once. Beyond the FIR matmuls the model charges the ELEMENTWISE
-    chains' HBM traffic (sync epilogues, mixes, matrixing, the RDS
-    decode tail): each fused elementwise kernel reads its materialized
+    chains' device-memory traffic (sync epilogues, mixes, matrixing, the
+    RDS decode tail): each fused elementwise kernel reads its materialized
     inputs and writes its stage-boundary output once — counts below are
-    stream tallies of the shipping graph (trace-calibrated, BENCH_NOTES
-    r5)."""
+    stream tallies of the shipping graph."""
     cfg = rx.cfg
     out = [("frontend.rf(u8)", rx.frontend.rf_fir.cost(2 * cfg.block_size_iq))]
     n_if = cfg.if_block
@@ -188,7 +194,7 @@ def stage_costs(rx, channels: int = 1) -> list[tuple[str, dict]]:
         out.append(("audio.pll+mix", _ew(5, n_if)))
     if rx.rds_path is not None and rx.rds_path._sync is not None:
         # general-path epilogue: c_re/c_im + delay reads, the wrapped-
-        # delta stream through the MXU prefix sum (write + read), mixed
+        # delta stream through the matmul prefix sum (write + read), mixed
         # write; the angle table is a shared constant
         out.append(("rds.sync.epi+unwrap+mix", _ew(6, n_if, 1, channels)))
         # decode tail at the RDS rate: RRC output re-read by the CDR comb
@@ -201,7 +207,8 @@ def stage_costs(rx, channels: int = 1) -> list[tuple[str, dict]]:
 
 
 def speed_of_light_report(rx, file=None, channels: int = 1,
-                          blocks: int = 1) -> dict:
+                          blocks: int = 1,
+                          device_kind: str | None = None) -> dict:
     """Print per-stage FLOPs / bytes / speed-of-light floor per blk/ch.
 
     The SoL floor per stage is max(flops/peak_flops, bytes/peak_bw); the
@@ -211,16 +218,15 @@ def speed_of_light_report(rx, file=None, channels: int = 1,
     ``channels``/``blocks`` describe the SERVING SHAPE the floor is for:
     weight matrices stream once per dispatch, not once per block-channel
     — an XLA batched einsum reads its weights once for the whole
-    (channels, frames) batch, so "w_bytes" divides by channels*blocks;
-    the vmapped Mosaic frontend kernel re-reads its weights per CHANNEL
-    instance (one kernel launch per channel covers the whole segment),
-    so its weights divide by blocks only. The round-4 model charged all
-    weights per blk/ch, overstating weight-heavy stages up to 10x and
-    putting three modes "above the floor" (VERDICT r4 weak #2) — with
-    amortization + the elementwise rows every mode measures BELOW its
-    ceiling at the serving shape (BENCH_NOTES r5)."""
+    (channels, frames) batch, so "w_bytes" divides by channels*blocks.
+
+    Peaks come from ``device_peaks(device_kind)`` (default: the first JAX
+    device), which raises for a device it does not know. f32 stages run
+    at the device's f32 rate (Precision.HIGHEST stays off the tensor
+    cores), bf16 stages at its bf16 rate."""
     import sys as _sys
     file = file or _sys.stderr
+    peaks = device_peaks(device_kind)
     cfg = rx.cfg
     budget = cfg.block_size_iq / cfg.rf_fs
     rows = stage_costs(rx, channels=channels)
@@ -229,13 +235,12 @@ def speed_of_light_report(rx, file=None, channels: int = 1,
           f"{channels}ch x {blocks}blk ({budget*1e3:.2f} ms of signal):",
           file=file)
     for name, c in rows:
-        peak = V5E_BF16_FLOPS if "bf16" in c["kind"] else _f32_flops()
+        peak = (peaks["bf16_flops"] if "bf16" in c["kind"]
+                else peaks["f32_flops"])
         w_b = c.get("w_bytes", 0)
-        amort = blocks if c["kind"].startswith("fused_u8") \
-            else channels * blocks
-        byts = c["bytes"] - w_b + w_b / amort
+        byts = c["bytes"] - w_b + w_b / (channels * blocks)
         t_f = c["flops"] / peak
-        t_b = byts / V5E_HBM_BPS
+        t_b = byts / peaks["hbm_bps"]
         t = max(t_f, t_b)
         bound = "compute" if t_f >= t_b else "memory"
         tot_f += c["flops"]; tot_b += byts; tot_t += t
@@ -248,14 +253,3 @@ def speed_of_light_report(rx, file=None, channels: int = 1,
           f"{budget/tot_t:,.0f}x realtime per channel", file=file)
     return {"flops": tot_f, "bytes": tot_b, "floor_s": tot_t,
             "ceiling_x": budget / tot_t}
-
-
-@contextlib.contextmanager
-def device_trace(log_dir: str = "/tmp/rtsdr_trace"):
-    """jax profiler trace around a region (view with xprof/tensorboard)."""
-    import jax
-    jax.profiler.start_trace(log_dir)
-    try:
-        yield log_dir
-    finally:
-        jax.profiler.stop_trace()

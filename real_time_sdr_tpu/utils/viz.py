@@ -5,7 +5,7 @@ The reference debugs channels three ways: ``fmPlotPSD`` axis formatting
 (model/fmSupportLib.py:292-320), the per-block PSD animation
 (model/fmMonoAnim.py), and gnuplot overlays of ``logVector`` dumps
 (data/example.gnuplot:14-22 — RDS eye/impulse traces). All three assume an
-interactive display; on a TPU host everything is headless, so every figure
+interactive display; an accelerator host is headless, so every figure
 here renders straight to PNG (matplotlib Agg) and the PSD math runs through
 our own device op (ops.spectrum.estimate_psd, the Bartlett twin) instead of
 ``ax.psd``. ``python -m real_time_sdr_tpu.viz`` drives a whole capture

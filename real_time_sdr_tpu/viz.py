@@ -69,12 +69,11 @@ def main(argv=None) -> int:
                          "snapshot update")
     args = ap.parse_args(argv)
 
-    # must precede the first `import jax` — the default cache dir is captured
-    # at import time
-    os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_cache")
+    import jax
     if args.cpu:
-        import jax
         jax.config.update("jax_platforms", "cpu")
+    from real_time_sdr_tpu.utils import compile_cache
+    compile_cache.enable()
     import jax.numpy as jnp
     import numpy as np
 

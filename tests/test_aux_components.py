@@ -20,8 +20,8 @@ def test_fft_equivalence_ladder():
         512, seed=4)
     ref = fourier.dft_naive(x)
     xc = jnp.asarray(x.astype(np.complex64))
-    # every rung of the TPU ladder agrees with the float64 oracle:
-    # XLA FFT, the MXU-matmul DFT, and the Stockham autosort radix-2
+    # every rung of the transform ladder agrees with the float64 oracle:
+    # XLA FFT, the matmul DFT, and the Stockham autosort radix-2
     for fn in (fourier.fft, fourier.dft_matmul, fourier.fft_stockham):
         got = np.asarray(fn(xc))
         np.testing.assert_allclose(got, ref, atol=1e-2)

@@ -125,10 +125,10 @@ def test_periodic_tone_mode_matches_general():
 
 
 def test_bf16_channelizer_fir_parity():
-    """The TPU-default bf16 channelizer FIR (RTSDR_CHAN_FIR=bf16) must run
-    on CPU too: output stays f32 and agrees with the f32-HIGHEST path above
-    the uint8 re-encode floor (~-49 dB), and the carried tails stay f32 in
-    the state pytree (the npz round-trip rule)."""
+    """The opt-in bf16 channelizer FIR (RTSDR_CHAN_FIR=bf16): output stays
+    f32 and agrees with the f32-HIGHEST path above the uint8 re-encode
+    floor (~-49 dB), and the carried tails stay f32 in the state pytree
+    (the npz round-trip rule)."""
     import os as _os
     import jax as _jax
 
@@ -143,7 +143,7 @@ def test_bf16_channelizer_fir_parity():
         del _os.environ["RTSDR_CHAN_FIR"]
     assert ch_b.fir.compute_dtype == "bf16"
     ch_f = Channelizer(cfg, wide_fs, offs)
-    assert ch_f.fir.compute_dtype == "f32"  # CPU default
+    assert ch_f.fir.compute_dtype == "f32"  # the default
 
     rng = np.random.default_rng(9)
     n = 2 * cfg.block_size_iq * ch_b.decim
@@ -325,6 +325,6 @@ def test_channelizer_matches_float64_oracle():
         err = np.mean(np.abs(a - b) ** 2)
         sig = np.mean(np.abs(b) ** 2)
         snr = 10 * np.log10(sig / (err + 1e-30))
-        # f32 device vs f64 oracle; bf16 mode (TPU) still clears ~45 dB
+        # f32 device vs f64 oracle; bf16 mode still clears ~45 dB
         bound = 45 if ch.fir.compute_dtype == "bf16" else 90
         assert snr > bound, f"station {s}: {snr:.1f} dB"

@@ -50,7 +50,7 @@ def test_channel_bank_distinct_channels():
 
 
 def test_channel_bank_grouped_segment_exact():
-    # sequential 32-wide sub-batches (the v5e cache-locality serving shape)
+    # sequential sub-batches (the cache-locality serving shape)
     # produce bit-identical outputs and final state vs one wide batch
     rx = Receiver(0, stereo=True, rds=True, pll_tier=3)
     bank = ChannelBank(rx, n_channels=8)
@@ -222,70 +222,75 @@ def test_run_channelized_matches_explicit_two_step():
         np.testing.assert_array_equal(np.asarray(la), np.asarray(lb))
 
 
-def test_chan_epilogue_kernel_byte_exact():
-    """The Mosaic fold-epilogue kernel (interpret mode) vs the NumPy
-    reference of the XLA 4-D epilogue on the same y: the transpose,
-    slicing and int32 byte packing must be EXACT (any packing/order bug
-    shows as gross byte scatter); the rotation multiply-add may contract
-    to FMA under compilation, so quantization boundaries may flip by 1
-    u8 LSB at a tiny fraction of samples (-48 dB, far below every
-    product floor). The compiled kernel matched NumPy byte-for-byte on
-    v5e (2026-08-20)."""
-    from real_time_sdr_tpu.ops.pallas.chan_epilogue import (
-        fold_epilogue_u8, reference_u8, eligible)
+def _reference_u8(y, pc, ps, r_n, s_ch, n_out):
+    """NumPy oracle of the static-tone fold epilogue: rotate each station's
+    (re, im) column pair by the residual tone, quantize to the uint8 tuner
+    interface, interleave i/q station-major."""
+    c = y.shape[0]
+    y4 = y.reshape(c, r_n, 2, s_ch)
+    vr, vi = y4[:, :, 0, :], y4[:, :, 1, :]
+    i_full = vr * pc - vi * ps
+    q_full = vi * pc + vr * ps
+    z = np.stack([i_full, q_full], axis=-1)
+    u8 = np.clip(np.round(128.0 + 127.0 * z), 0, 255).astype(np.uint8)
+    return u8.transpose(2, 0, 1, 3).reshape(s_ch, -1)[:, :2 * n_out]
+
+
+def test_chan_epilogue_byte_exact():
+    """The channelizer's XLA fold epilogue vs the NumPy reference on the
+    same y: the transpose, slicing and i/q interleave must be EXACT (any
+    order bug shows as gross byte scatter); the rotation multiply-add may
+    contract to FMA under compilation, so quantization boundaries may flip
+    by 1 u8 LSB at a tiny fraction of samples (-48 dB, far below every
+    product floor)."""
+    from real_time_sdr_tpu.models.channelizer import fold_epilogue_u8
 
     s_ch, r_n, c = 64, 16, 512
-    assert eligible(r_n, s_ch, c)
     rng = np.random.default_rng(7)
     y = rng.standard_normal((c, r_n * 2 * s_ch)).astype(np.float32)
     pc = np.cos(rng.uniform(0, 7, s_ch)).astype(np.float32)
     ps = np.sin(rng.uniform(0, 7, s_ch)).astype(np.float32)
     n_out = c * r_n - 37       # exercise the partial-frame slice
-    got = np.asarray(
-        fold_epilogue_u8(jnp.asarray(y), jnp.asarray(pc),
-                         jnp.asarray(ps), r_n, s_ch, n_out,
-                         interpret=True)).astype(np.int32)
-    ref = reference_u8(y, pc, ps, r_n, s_ch, n_out).astype(np.int32)
+    got = np.asarray(jax.jit(fold_epilogue_u8, static_argnums=(3, 4, 5))(
+        jnp.asarray(y), jnp.asarray(pc), jnp.asarray(ps), r_n, s_ch,
+        n_out)).astype(np.int32)
+    ref = _reference_u8(y, pc, ps, r_n, s_ch, n_out).astype(np.int32)
+    assert got.shape == ref.shape == (s_ch, 2 * n_out)
     diff = np.abs(got - ref)
     assert diff.max() <= 1, diff.max()            # FMA-boundary flips only
     assert (diff != 0).mean() < 0.01, (diff != 0).mean()
 
 
-def test_call_u8_kernel_epilogue_integration():
-    """call_u8 with the Mosaic epilogue (RTSDR_CHAN_EPI=interpret, CPU)
-    vs the XLA epilogue on a REAL 64-station channelizer — same
-    instance, same weights and plan pads; only the epilogue differs.
-    Agreement to 1 u8 LSB (FMA contraction of the rotation), identical
-    carried state."""
-    import os as _os
+def test_call_u8_matches_to_uint8_64_stations():
+    """call_u8's fused epilogue (quantize before the station-major
+    transpose) on a REAL 64-station static-tone channelizer vs quantizing
+    the f32 station basebands: the same bytes, since quantization commutes
+    elementwise with the transpose (up to 1 u8 LSB where FMA contraction
+    differs), and identical carried state."""
     from conftest import mk_channelizer
 
     rx = Receiver(0, stereo=False, rds=False)
     cfg = rx.cfg
-    wide_fs = 8 * cfg.rf_fs
     n_st = 64
     offs = [int((k - (n_st - 1) / 2) * 300_000) for k in range(n_st)]
-    _os.environ["RTSDR_CHAN_EPI"] = "interpret"
-    try:
-        ch = mk_channelizer(cfg, wide_fs, offs, fold=True)
-    finally:
-        del _os.environ["RTSDR_CHAN_EPI"]
-    assert ch._fold_static and ch._fold_kernel == "interpret"
+    ch = mk_channelizer(cfg, 8 * cfg.rf_fs, offs, fold=True)
+    assert ch._fold_static
 
     rng = np.random.default_rng(21)
     nseg = cfg.block_size_iq * ch.decim
     iw = jnp.asarray(rng.standard_normal(nseg).astype(np.float32) * 0.2)
     qw = jnp.asarray(rng.standard_normal(nseg).astype(np.float32) * 0.2)
-    u8_k, st_k = ch.call_u8(iw, qw, ch.init_state())
-    kernel_plan = ch._fold_plan(int(iw.shape[-1]))
-    ch._fold_kernel = None     # same instance -> same weights
-    ch._fold_plan_cache[int(iw.shape[-1])] = kernel_plan  # same pads too
-    u8_x, st_x = ch.call_u8(iw, qw, ch.init_state())
-    diff = np.abs(np.asarray(u8_k).astype(np.int32)
+    u8_f, st_f = ch.call_u8(iw, qw, ch.init_state())
+    (i_ds, q_ds), st_x = ch(iw, qw, ch.init_state())
+    u8_x = ch.to_uint8(i_ds, q_ds)
+    assert u8_f.shape == u8_x.shape == (n_st, 2 * cfg.block_size_iq)
+    diff = np.abs(np.asarray(u8_f).astype(np.int32)
                   - np.asarray(u8_x).astype(np.int32))
     assert diff.max() <= 1, diff.max()
     assert (diff != 0).mean() < 0.01, (diff != 0).mean()
-    np.testing.assert_array_equal(np.asarray(st_k.pos), np.asarray(st_x.pos))
+    for a, b in zip(jax.tree_util.tree_leaves(st_f),
+                    jax.tree_util.tree_leaves(st_x)):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
 @pytest.mark.parametrize("fold", [True, False])

@@ -247,12 +247,12 @@ def test_framer_state_roundtrips_through_json():
 def test_mixed_group_schedule_full_station_metadata():
     """A realistic schedule: PS + 2A RadioText + CT interleaved."""
     pi, pty = 0x2B1C, 9
-    groups = (synth.ps_groups(pi, pty, "TPU SDR ")
+    groups = (synth.ps_groups(pi, pty, "JAX SDR ")
               + synth.radiotext_groups(pi, pty, "ALL GROUP TYPES AT ONCE")
               + [synth.clocktime_group(pi, pty, 2031, 12, 31, 23, 59,
                                        offset_half_hours=2)])
     fr = _feed(RdsFramer(), groups, repeats=2)
-    assert fr.events.ps_name == "TPU SDR "
+    assert fr.events.ps_name == "JAX SDR "
     assert fr.events.radiotext.startswith("ALL GROUP TYPES AT ONCE")
     assert fr.events.clock_utc == "2031-12-31 23:59 UTC+1.0"
 

@@ -126,12 +126,12 @@ def test_radiotext_decoded():
     # 90 blocks (~2.75 s) covers warm-up plus two complete cycles
     rx = Receiver(0, stereo=True, rds=True)
     iq, truth = synth.station_iq(
-        rx.cfg, 90, ps_name="TPU-SDR ", pi=0x1ABC, pty=2,
-        radiotext="HELLO FROM THE TPU RECEIVER ")
+        rx.cfg, 90, ps_name="JAX-SDR ", pi=0x1ABC, pty=2,
+        radiotext="HELLO FROM THE JAX RECEIVER ")
     framer = RdsFramer()
     run_rx(rx, iq, framer)
-    assert framer.events.ps_name == "TPU-SDR "
-    assert framer.events.radiotext.startswith("HELLO FROM THE TPU RECEIVER")
+    assert framer.events.ps_name == "JAX-SDR "
+    assert framer.events.radiotext.startswith("HELLO FROM THE JAX RECEIVER")
 
 
 def test_scan_runner_matches_stepwise():

@@ -405,7 +405,7 @@ def test_full_reference_own_dsp_chain(tmp_path):
     discriminator + combined 247/640 baseband, the closest model to THIS
     framework's architecture) — must sync on a repo capture and parse
     the PI/PTY plus the RadioText this repo's encoder transmitted."""
-    pi, pty, rt = 0x3A5C, 5, "TPU ORACLE TEST"
+    pi, pty, rt = 0x3A5C, 5, "JAX ORACLE TEST"
     cfg = ReceiverConfig()
     iq, _ = synth.station_iq(cfg, 45, ps_name="TPU-FM  ", pi=pi, pty=pty,
                              radiotext=rt)

@@ -3,7 +3,7 @@ against the bit-exact dynamic-slice roll (=slice).
 
 The rot mode replaced seven vmapped dynamic_slice table rolls (each an XLA
 while-loop gather) with ONE scalar rotation of static tiled tables —
-+18-23% per mode (BENCH_NOTES 2026-08-20) — but it is an *approximation*:
+faster — but it is an *approximation*:
 cos(th_s + th_j) expanded by the angle-sum identity carries ~1e-6 f32
 product rounding vs the exact per-phase table values. These tests bound
 that error class at both production operating points (stereo 19 kHz

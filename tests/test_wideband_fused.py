@@ -114,7 +114,7 @@ def test_fused_segment_continuity():
 
 
 def test_fused_bf16_parity_and_dtypes():
-    """bf16 weights/rails (the TPU serving default) vs f32-HIGHEST: the
+    """bf16 weights/rails (the opt-in RTSDR_WB_FIR=bf16 mode) vs f32-HIGHEST: the
     injected noise must stay comparable to the uint8 hop it replaces
     (~-49 dB); bf16x2 (hi+lo split taps) must land between the two.
     Output demod and all state leaves stay f32 (npz contract)."""
